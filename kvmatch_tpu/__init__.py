@@ -1,4 +1,4 @@
-"""kvmatch_tpu — TPU-native exact subsequence matching (KV-match re-designed).
+"""kvmatch_tpu — accelerator-native exact subsequence matching (KV-match re-designed).
 
 Public surface:
 

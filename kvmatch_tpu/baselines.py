@@ -1,4 +1,4 @@
-"""Index-free full-scan baselines — the UCR-suite executors, TPU style.
+"""Index-free full-scan baselines — the UCR-suite executors, batched on the device.
 
 Equivalents of the reference's baseline drivers (experiments/ucr/
 UcrEdQueryExecutor.java:29-184, UcrDtwQueryExecutor.java:31-315,

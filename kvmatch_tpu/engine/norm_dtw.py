@@ -1,6 +1,6 @@
 """cNSM-DTW engine: constrained normalized matching under banded DTW.
 
-TPU-native equivalent of the reference NormQueryEngineDtw
+Device-native equivalent of the reference NormQueryEngineDtw
 (NormQueryEngineDtw.java:44-1065) — the union of the cNSM machinery
 (alpha/beta probe bounds, Ex/Ex2 std-filter, beta partitions) and the DTW
 machinery (envelope segments, LB cascade, banded DP on z-normalized windows).

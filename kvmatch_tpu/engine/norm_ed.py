@@ -1,6 +1,6 @@
 """cNSM-ED engine: constrained normalized subsequence matching under ED.
 
-TPU-native equivalent of the reference NormQueryEngine (NormQueryEngine.java:43-915):
+Device-native equivalent of the reference NormQueryEngine (NormQueryEngine.java:43-915):
 z-normalized Euclidean distance with the constraints
 
     |mu_T - mu_Q| <= beta        and        1/alpha <= sigma_T/sigma_Q <= alpha.

@@ -1,6 +1,6 @@
 """RSM-DTW engine: raw-subsequence matching under banded dynamic time warping.
 
-TPU-native equivalent of the reference QueryEngineDtw (QueryEngineDtw.java:44-854).
+Device-native equivalent of the reference QueryEngineDtw (QueryEngineDtw.java:44-854).
 Phase 0/1 reuse the RSM-ED machinery with the query's Lemire envelope as the
 per-segment mean *range* (RangeQuerySegment, QueryEngineDtw.java:515-644); phase 2
 is the batched LB cascade + banded-DTW kernel (ops/dtw.py) with exact float64
@@ -45,7 +45,7 @@ class QueryEngineDtw(QueryEngine):
         LB_Keogh prefilter, then the early-abandoning f64 banded DP — no
         device at all.  Numpy on one core is far slower per candidate than
         the device cascade, so this route is gated to host_only engines with
-        tiny loads (the n=1e10 no-tunnel demo)."""
+        tiny loads (series larger than device memory)."""
         ctx.stats.n_host_checked = int(offsets.size)
         if offsets.size == 0:
             return np.empty(0, np.int64), np.empty(0)

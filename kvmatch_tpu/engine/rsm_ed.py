@@ -1,6 +1,6 @@
 """RSM-ED engine: raw-subsequence matching under Euclidean distance.
 
-TPU-native equivalent of the reference QueryEngine (QueryEngine.java:46-711).
+Device-native equivalent of the reference QueryEngine (QueryEngine.java:46-711).
 """
 
 from __future__ import annotations
@@ -209,11 +209,11 @@ class QueryEngine(BaseEngine):
 
     def _verify_multi(self, cand_ivs, ctxs):
         """Fused multi-query verification.  Clustered candidate sets go through
-        the region/conv path (MXU sliding correlation, ops/regions.py); scattered
+        the region path (batched FFT sliding correlation, ops/regions.py); scattered
         ones through the per-candidate gather kernel."""
         L = ctxs[0].length
         if self._host_verify_ok(cand_ivs, L):
-            # Tiny load: exact f64 host kernel beats the device launch floor
+            # Tiny load: exact f64 host kernel beats a device launch's fixed cost
             # (see QueryConfig.host_verify_max_points).  PAA prefilter first —
             # it needs only prefix sums, no window gather.  Past
             # PREFILTER_CUMSUM_MAX_N the full-series cumsum is unaffordable

@@ -350,7 +350,10 @@ void dtw_band_f64(
         for (long i = 0; i < m; i++) {
             long j_lo = i - r < 0 ? 0 : i - r;
             long j_hi = i + r >= m ? m - 1 : i + r;
-            for (long j = 0; j <= m; j++) cur[j] = INF;
+            /* The next row reads this one only at slots j_lo .. j_hi + 2:
+             * reset the two slots outside the band, the rest is written. */
+            cur[j_lo] = INF;
+            if (j_hi + 2 <= m) cur[j_hi + 2] = INF;
             double run = INF;
             double rowmin = INF;
             for (long j = j_lo; j <= j_hi; j++) {

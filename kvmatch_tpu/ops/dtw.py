@@ -1,6 +1,6 @@
-"""Banded DTW + lower-bound cascade, batched for TPU.
+"""Banded DTW + lower-bound cascade, batched for the accelerator.
 
-TPU redesign of the UCR-suite kernels (utils/DtwUtils.java:22-338).  The reference
+Batched redesign of the UCR-suite kernels (utils/DtwUtils.java:22-338).  The reference
 runs one candidate at a time with data-dependent early abandoning; that shape doesn't
 vectorize, so here a *batch* of candidate windows moves through the cascade together:
 
@@ -8,8 +8,8 @@ vectorize, so here a *batch* of candidate windows moves through the cascade toge
 
 and each stage is a fixed-shape fused kernel.  Early abandoning is replaced by
 between-stage batch compaction (survivors are gathered on the host and re-batched),
-which is the TPU-idiomatic trade: bounded dense work at HBM bandwidth beats
-serial branchy work.
+which is the accelerator-idiomatic trade: bounded dense work at device-memory
+bandwidth beats serial branchy work.
 
 The banded DP itself uses a prefix-scan formulation of the row recurrence.  With
 band coordinate k (j = i - r + k) the classic recurrence
@@ -21,7 +21,7 @@ C = cumsum(dist) it unrolls to
 
     D[k] = C[k] + min_{j<=k} (M[j] - C[j-1]),
 
-i.e. one cumulative sum + one cumulative min per row — log-depth on the VPU, no
+i.e. one cumulative sum + one cumulative min per row — log-depth vector work, no
 scalar loop.  A float64 NumPy twin (`dtw_banded_batch_f64`) provides the exact
 host confirmation for near-threshold candidates.
 """
@@ -65,10 +65,9 @@ def _band_dtw_rows(a_batch, q, r: int):
 
 
 # Rows evaluated per lax.scan step.  One row per step leaves the program
-# latency-bound (L tiny steps of (B, W) VPU work, round-2: 11.8k cands/s at
-# 0.4% of measured FLOPs); unrolling amortizes the per-step scan overhead
-# across UNROLL rows while computing bit-identical values (the row recurrence
-# is simply inlined UNROLL times per step).
+# latency-bound (L tiny steps of (B, W) vector work); unrolling amortizes the
+# per-step scan overhead across UNROLL rows while computing bit-identical
+# values (the row recurrence is simply inlined UNROLL times per step).
 DTW_UNROLL = 8
 
 
@@ -192,9 +191,11 @@ def dtw_banded_batch_ds_multi(a_batch: jnp.ndarray, q_batch: jnp.ndarray,
                               r: int):
     """Banded DTW with double-single accumulation; returns the (hi, lo) f32
     pair per candidate (combine as float64 on the host — f64 dtypes don't
-    exist on device without global x64).  hi+lo matches the exact-f64 DP on
-    the same f32 inputs to ~2^-40 relative; the remaining difference to the
-    f64-data twin is input rounding only."""
+    exist on device without global x64).  The accumulation is exact to
+    ~2^-40 relative; each cell (a - q)^2 is still rounded to f32 (<= 2^-24
+    relative), so against the float64 DP on the same f32 inputs the result
+    differs by ~1e-8 relative (measured on an H100, PERF.md) — the input-
+    rounding term that verify.ds_guard bounds."""
     Bsz, L = a_batch.shape
     W = 2 * r + 1
     ks = jnp.arange(W)
@@ -363,11 +364,16 @@ def lb_stage_multi(data, env_lo, env_hi, qm, lo_m, hi_m, offs, qids, length: int
     return jnp.maximum(lb, lb_keogh_multi(q, e_lo, e_hi))
 
 
-def _use_pallas_dtw() -> bool:
-    """Trace-safe cached availability check for the Pallas DP (must be called
-    OUTSIDE any jit trace — all dispatchers below are plain Python)."""
-    from .dtw_pallas import pallas_dtw_available
-    return pallas_dtw_available()
+def dtw_kernel_for(platform: str, r: int, length: int) -> str:
+    """Route of the f32 banded-DP stage: ``'cuda'`` (the register-resident
+    wavefront kernel, ops/dtw_cuda.py) on a GPU when the band fits it,
+    ``'xla'`` (the prefix-scan formulation above) otherwise."""
+    from .dtw_cuda import MAX_BAND
+    if platform == "gpu":
+        return "cuda" if 2 * min(r, length - 1) + 1 <= MAX_BAND else "xla"
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no banded-DTW route for platform {platform!r}")
 
 
 @functools.partial(jax.jit, static_argnames=("length", "r"))
@@ -378,21 +384,20 @@ def _dtw_stage_multi_xla(data, qm, offs, qids, length: int, r: int):
 
 
 @functools.partial(jax.jit, static_argnames=("length", "r"))
-def _dtw_stage_multi_pallas(data, qm, offs, qids, length: int, r: int):
-    from .dtw_pallas import dtw_banded_pallas
+def _dtw_stage_multi_cuda(data, qm, offs, qids, length: int, r: int):
+    from .dtw_cuda import dtw_banded_cuda
     from .ed import _gather_windows
     x = _gather_windows(data, offs, length)
-    return dtw_banded_pallas(x, qm[qids], r)
+    return dtw_banded_cuda(x, qm, qids, r)
 
 
 def dtw_stage_multi(data, qm, offs, qids, length: int, r: int):
-    """f32 banded-DP stage: VMEM-resident Pallas kernel when the backend can
-    lower it, XLA prefix-scan formulation otherwise.  Both compute the same
-    recurrence; f32 rounding differs only in summation order, which the
+    """f32 banded-DP stage, routed by dtw_kernel_for.  Both routes compute the
+    same recurrence; f32 rounding differs only in summation order, which the
     engines' guard band (vf.guard_threshold) absorbs — near-threshold
     candidates go to the DS/f64 confirm either way."""
-    if _use_pallas_dtw():
-        return _dtw_stage_multi_pallas(data, qm, offs, qids, length, r)
+    if dtw_kernel_for(jax.default_backend(), r, length) == "cuda":
+        return _dtw_stage_multi_cuda(data, qm, offs, qids, length, r)
     return _dtw_stage_multi_xla(data, qm, offs, qids, length, r)
 
 
@@ -448,18 +453,18 @@ def _dtw_stage_znorm_multi_xla(data, zq_m, offs, qids, length: int, r: int):
 
 
 @functools.partial(jax.jit, static_argnames=("length", "r"))
-def _dtw_stage_znorm_multi_pallas(data, zq_m, offs, qids, length: int, r: int):
-    from .dtw_pallas import dtw_banded_pallas
+def _dtw_stage_znorm_multi_cuda(data, zq_m, offs, qids, length: int, r: int):
+    from .dtw_cuda import dtw_banded_cuda
     from .ed import _gather_windows
     x = _gather_windows(data, offs, length)
     z, _, _ = _znorm_rows(x, length)
-    return dtw_banded_pallas(z, zq_m[qids], r)
+    return dtw_banded_cuda(z, zq_m, qids, r)
 
 
 def dtw_stage_znorm_multi(data, zq_m, offs, qids, length: int, r: int):
     """z-normalized f32 banded-DP stage; see dtw_stage_multi for dispatch."""
-    if _use_pallas_dtw():
-        return _dtw_stage_znorm_multi_pallas(data, zq_m, offs, qids, length, r)
+    if dtw_kernel_for(jax.default_backend(), r, length) == "cuda":
+        return _dtw_stage_znorm_multi_cuda(data, zq_m, offs, qids, length, r)
     return _dtw_stage_znorm_multi_xla(data, zq_m, offs, qids, length, r)
 
 

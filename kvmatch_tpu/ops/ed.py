@@ -1,10 +1,10 @@
 """Batched Euclidean-distance verification kernels (phase 2, ED engines).
 
-TPU redesign of the reference's scalar early-abandon loops
+Batched redesign of the reference's scalar early-abandon loops
 (QueryEngine.java:343-363, NormQueryEngine.java:484-527): instead of one
 data-dependent loop per offset, all candidate windows are verified as one padded
 (B, L) batch of fused vector ops.  Early abandoning does not vectorize; the win on
-TPU comes from doing the full O(B*L) work at HBM bandwidth and batching many
+device comes from doing the full O(B*L) work at memory bandwidth and batching many
 candidates (and many queries) per launch.
 
 The z-normalized distance uses the closed form (MASS-style):
@@ -12,7 +12,7 @@ The z-normalized distance uses the closed form (MASS-style):
     d^2(i) = 2L - 2 * (X_i . q_hat) / sigma_i        with q_hat = (Q-muQ)/sigmaQ,
 
 which follows from sum(q_hat)=0, sum(q_hat^2)=L, sum((x-mu_i)^2)=L*sigma_i^2 —
-one MXU matvec replaces the per-point normalize-subtract-square loop
+one matvec replaces the per-point normalize-subtract-square loop
 (NormQueryEngine.java:511-517).
 """
 
@@ -25,130 +25,19 @@ import jax.numpy as jnp
 import numpy as np
 
 
-#: Tile width (f32 lanes) of the aligned two-stage gather.  Multiple of 128.
-GATHER_TILE = 256
-
-#: The tiled gather trades per-element gathers for dense rolls — a large win on
-#: TPU (VPU rolls at bandwidth) but a loss on CPU where XLA's gather is already
-#: cheap.  CPU runs keep the legacy path; tests/conftest.py flips this so the
-#: CPU suite still covers the tiled code.
-GATHER_TILED_ON_CPU = False
-
-
-def pad_to_tiles(arr: jnp.ndarray) -> jnp.ndarray:
-    """Right-pad a 1-D device array to a GATHER_TILE multiple (edge value) so
-    _gather_windows takes the tiled fast path.  Engines pad their resident
-    series/envelope copies ONCE; padding inside a jitted gather would copy the
-    whole series every call."""
-    n = arr.shape[0]
-    pad = (-n) % GATHER_TILE
-    if pad == 0:
-        return arr
-    return jnp.concatenate([arr, jnp.broadcast_to(arr[-1:], (pad,))])
-
-
 def _gather_windows(data: jnp.ndarray, offsets: jnp.ndarray, length: int) -> jnp.ndarray:
-    """(B, L) windows data[offsets[b] : offsets[b]+L].
-
-    Tiled fast path (taken whenever the series length is a GATHER_TILE
-    multiple — engines pad once via pad_to_tiles): reshape the series to
-    (n/C, C) tiles, gather each window's T=ceil(L/C)+1 covering tile ROWS
-    (dense row gathers run near HBM bandwidth; the flat per-element gather the
-    vmapped dynamic_slice lowers to crawls at ~2 GB/s), then realign by
-    rem = offset mod C with a log2(C)-stage conditional barrel shifter of
-    dense rolls — measured ~4.5x faster end-to-end (scripts/
-    bench_gather_variants.py; VERDICT r2 item 1).  Fallback: the round-2
-    vmapped dynamic_slice for unpadded arrays (tests, small fixtures)."""
-    B = offsets.shape[0]
-    n = data.shape[0]
-    C = GATHER_TILE
-    tiled_ok = jax.default_backend() == "tpu" or GATHER_TILED_ON_CPU
-    if n % C == 0 and n >= C * 2 and tiled_ok:
-        ntiles = n // C
-        T = (length + C - 1) // C + 1
-        base = offsets // C
-        rows = jnp.minimum(base[:, None] + jnp.arange(T)[None, :], ntiles - 1)
-        flat = data.reshape(ntiles, C)[rows].reshape(B, T * C)
-        rem = (offsets % C).astype(jnp.int32)
-        shift = 1
-        while shift < C:
-            bit = (rem & shift) != 0
-            rolled = jnp.concatenate([flat[:, shift:], flat[:, :shift]], axis=1)
-            flat = jnp.where(bit[:, None], rolled, flat)
-            shift *= 2
-        return flat[:, :length]
-
-    def one(o):
-        return jax.lax.dynamic_slice(data, (o,), (length,))
-    return jax.vmap(one)(offsets)
-
-
-def _tiled_ok(data: jnp.ndarray) -> bool:
-    n = data.shape[0]
-    C = GATHER_TILE
-    return n % C == 0 and n >= C * 2 and \
-        (jax.default_backend() == "tpu" or GATHER_TILED_ON_CPU)
-
-
-def _tile_rows(data: jnp.ndarray, offsets: jnp.ndarray, length: int):
-    """Dense covering-tile-row gather: (B, K) unaligned windows, K = T*C,
-    where window b occupies columns [rem_b, rem_b + length)."""
-    B = offsets.shape[0]
-    n = data.shape[0]
-    C = GATHER_TILE
-    ntiles = n // C
-    T = (length + C - 1) // C + 1
-    base = offsets // C
-    rows = jnp.minimum(base[:, None] + jnp.arange(T)[None, :], ntiles - 1)
-    flat = data.reshape(ntiles, C)[rows].reshape(B, T * C)
-    rem = (offsets % C).astype(jnp.int32)
-    return flat, rem, T * C
-
-
-def _shift_tables(query: jnp.ndarray, length: int, K: int):
-    """(C, K) window mask and shifted-query tables for the table-gather ED
-    path: w[r, k] = 1 iff r <= k < r+length; qsh[r, k] = query[k-r] there.
-
-    Comparing tile rows against the rem-th table row computes the SAME
-    per-element subtract-square-sum as the aligned direct path (masked
-    positions contribute exactly 0.0), so the f32 error model — and hence
-    every engine guard band — is unchanged, while the log2(C) barrel-shift
-    realignment passes (8 full rewrites of the gathered buffer) disappear.
-    ``query`` may be (L,) or (Q, L); tables get a leading Q axis if present.
-    """
-    C = GATHER_TILE
-    k = jnp.arange(K, dtype=jnp.int32)[None, :]
-    r = jnp.arange(C, dtype=jnp.int32)[:, None]
-    inwin = (k >= r) & (k < r + length)
-    w = inwin.astype(jnp.float32)
-    qidx = jnp.clip(k - r, 0, length - 1)
-    if query.ndim == 1:
-        qsh = jnp.where(inwin, query[qidx], 0.0)
-    else:
-        qsh = jnp.where(inwin[None], query[:, qidx], 0.0)
-    return w, qsh
-
-
-def _win_mask(rem: jnp.ndarray, K: int, length: int) -> jnp.ndarray:
-    """(B, K) window mask computed ON THE FLY from the per-row remainder —
-    exactly the rows ``w[rem]`` of _shift_tables' mask table (values are the
-    same exact 1.0/0.0, so results stay bit-identical), but as a pair of iota
-    compares the VPU produces in registers instead of a (B, K) f32 HBM gather
-    — ~1/3 of the table path's gather traffic removed."""
-    k = jax.lax.broadcasted_iota(jnp.int32, (rem.shape[0], K), 1)
-    r = rem[:, None]
-    return ((k >= r) & (k < r + length)).astype(jnp.float32)
+    """(B, L) windows data[offsets[b] : offsets[b]+L], one dynamic_slice per
+    window.  XLA's GPU gather of these contiguous windows is coalesced; a
+    tiled covering-row gather with barrel-shift realignment measured slower
+    on most phase-2 shapes (PERF.md, Kernel decisions)."""
+    return jax.vmap(lambda o: jax.lax.dynamic_slice(data, (o,), (length,)))(
+        offsets)
 
 
 @functools.partial(jax.jit, static_argnames=("length",))
 def ed_distances(data: jnp.ndarray, query: jnp.ndarray, offsets: jnp.ndarray,
                  length: int) -> jnp.ndarray:
     """Raw squared Euclidean distances for a batch of candidate offsets."""
-    if _tiled_ok(data):
-        flat, rem, K = _tile_rows(data, offsets, length)
-        _, qsh = _shift_tables(query, length, K)
-        diff = flat - qsh[rem]
-        return jnp.sum(_win_mask(rem, K, length) * diff * diff, axis=1)
     x = _gather_windows(data, offsets, length)
     diff = x - query[None, :]
     return jnp.sum(diff * diff, axis=1)
@@ -160,31 +49,9 @@ def ed_distances_multi(data: jnp.ndarray, queries: jnp.ndarray,
                        length: int) -> jnp.ndarray:
     """Raw squared distances for candidates belonging to *different* queries:
     one launch serves a whole query batch (queries: (Q, L), qids: (B,))."""
-    if _tiled_ok(data):
-        flat, rem, K = _tile_rows(data, offsets, length)
-        _, qsh = _shift_tables(queries, length, K)
-        C = GATHER_TILE
-        qrow = qsh.reshape(-1, K)[qids * C + rem]
-        diff = flat - qrow
-        return jnp.sum(_win_mask(rem, K, length) * diff * diff, axis=1)
     x = _gather_windows(data, offsets, length)
     diff = x - queries[qids]
     return jnp.sum(diff * diff, axis=1)
-
-
-def _znorm_from_rows(x, w, qrow, length):
-    """Masked z-normalized distance over (B, K) rows; w / qrow select the
-    window.  Same per-element arithmetic as the aligned direct path."""
-    inv_l = np.float32(1.0 / length)
-    mean = jnp.sum(w * x, axis=1) * inv_l
-    centered = (x - mean[:, None]) * w
-    var = jnp.sum(centered * centered, axis=1) * inv_l
-    std = jnp.sqrt(var)
-    safe = jnp.where(std > 0, std, 1.0)
-    zdiff = (centered / safe[:, None] - qrow) * w
-    d2 = jnp.sum(zdiff * zdiff, axis=1)
-    d2 = jnp.where(std > 0, d2, jnp.inf)
-    return d2, mean, std
 
 
 @functools.partial(jax.jit, static_argnames=("length",))
@@ -193,11 +60,6 @@ def znorm_ed_distances_multi(data: jnp.ndarray, queries_hat: jnp.ndarray,
                              length: int):
     """Batched z-normalized distances across a query batch; returns
     (d2, mean, std) like znorm_ed_distances."""
-    if _tiled_ok(data):
-        flat, rem, K = _tile_rows(data, offsets, length)
-        _, qsh = _shift_tables(queries_hat, length, K)
-        qrow = qsh.reshape(-1, K)[qids * GATHER_TILE + rem]
-        return _znorm_from_rows(flat, _win_mask(rem, K, length), qrow, length)
     x = _gather_windows(data, offsets, length)
     inv_l = np.float32(1.0 / length)
     mean = jnp.sum(x, axis=1) * inv_l
@@ -219,11 +81,6 @@ def znorm_ed_distances(data: jnp.ndarray, query_hat: jnp.ndarray,
     ``query_hat`` must already be z-normalized ((Q-muQ)/sigmaQ, population std).
     Returns (d2, mean, std); d2 is inf where std == 0.
     """
-    if _tiled_ok(data):
-        flat, rem, K = _tile_rows(data, offsets, length)
-        _, qsh = _shift_tables(query_hat, length, K)
-        return _znorm_from_rows(flat, _win_mask(rem, K, length), qsh[rem],
-                                length)
     x = _gather_windows(data, offsets, length)
     inv_l = np.float32(1.0 / length)
     mean = jnp.sum(x, axis=1) * inv_l

@@ -6,8 +6,7 @@ HBM traffic for an interval of m offsets; the reference pays the analogous cost
 as batched KV range reads of MAX_SCAN_DATA_LENGTH points
 (QueryEngine.java:341-363, NormQueryEngine.java:420-470).  These kernels
 instead gather each interval's REGION once (m+L-1 points) and evaluate all of
-its offsets with one batched rfft/irfft cross-correlation (measured faster AND
-~4000x more accurate than XLA's TPU conv lowering — see _correlate):
+its offsets with one batched rfft/irfft cross-correlation (see _correlate):
 
     corr[i] = sum_j x[i+j] * q[j]                       (batched FFT)
     raw ED:   d2[i] = S2[i] - 2*corr[i] + ||q||^2       (sliding S2 by doubling)
@@ -36,15 +35,16 @@ import numpy as np
 # float32 round-off amplification constant for the error bounds (covers the
 # log-depth accumulation of FFT + sliding sums with slack to spare).
 ERR_C = 64.0 * np.finfo(np.float32).eps
-# Empirical FFT correlation error coefficient: measured max error stays ~100x
-# below 1e-5 * ||x||_2 * ||q||_2 across magnitudes (tests/test_regions.py and
-# on-device measurements).
+# FFT correlation error coefficient: the measured max error of the device FFT
+# correlation against float64, |err| / (||x||_2 * ||q||_2), at the region
+# widths the engines launch stays far below it (chip_smoke.py prints the
+# measurement; tests/test_regions.py covers the CPU).
 FFT_ERR_C = 1e-5
 
 
 def _gather_regions(data: jnp.ndarray, starts: jnp.ndarray, r_len: int) -> jnp.ndarray:
-    """Region slabs share the tiled barrel-shift gather (ops/ed.py): region
-    starts are just window offsets with a longer length."""
+    """Region slabs share the window gather (ops/ed.py): region starts are
+    just window offsets with a longer length."""
     from .ed import _gather_windows
     return _gather_windows(data, starts, r_len)
 
@@ -74,10 +74,10 @@ def _sliding_sum_rows(x: jnp.ndarray, w: int) -> jnp.ndarray:
 def _correlate(x: jnp.ndarray, q: jnp.ndarray) -> jnp.ndarray:
     """corr[b, i] = sum_j x[b, i+j] q[j]; shared filter across rows (one query).
 
-    FFT-based like the grouped variant: measured on TPU, XLA lowers f32 conv to
-    bf16 MXU passes (~2e-3 relative error) while batched f32 FFT correlation
-    stays at ~5e-7 relative — FFT is both faster to compile and 4000x more
-    accurate here, and the error bounds below assume it."""
+    FFT-based like the grouped variant: batched f32 FFT correlation keeps a
+    bounded relative error (FFT_ERR_C, re-measured on the card by
+    chip_smoke.py) whatever precision a backend picks for f32 convolutions,
+    and the error bounds below assume it."""
     R = x.shape[1]
     L = q.shape[0]
     N = 1 << max(int(np.ceil(np.log2(R))), 1)
@@ -136,8 +136,8 @@ def region_znorm_distances(data: jnp.ndarray, query_hat: jnp.ndarray,
 def _correlate_grouped(x: jnp.ndarray, qs: jnp.ndarray) -> jnp.ndarray:
     """Per-row filters: corr[b, i] = sum_j x[b, i+j] qs[b, j].
 
-    A grouped conv (feature_group_count=B) would express this directly, but XLA
-    TPU degenerates at thousands of groups (compile+run blow up); batched FFT
+    A grouped conv (feature_group_count=B) would express this directly, but
+    thousands of groups are a poor fit for convolution kernels; batched FFT
     correlation is group-free and one fused launch.  The f32 FFT round-off is
     covered by the per-offset error columns the region kernels return."""
     R = x.shape[1]

@@ -1,8 +1,8 @@
-"""Device-side sliding-window primitives (JAX/XLA, TPU-first).
+"""Device-side sliding-window primitives (JAX/XLA).
 
 The reference computes sliding window sums with a serial running accumulator and a
 circular buffer, restarting every EPOCH=100000 points to bound float error
-(IndexBuilder.java:135-136, 233-291).  On TPU we replace that scalar loop with a
+(IndexBuilder.java:135-136, 233-291).  On the device we replace that scalar loop with a
 log-depth *doubling* scheme over the whole series at once:
 
     S_u[i]    = sum(T[i:i+u])                  (one tree-reduction window op)
@@ -11,7 +11,7 @@ log-depth *doubling* scheme over the whole series at once:
 so all scales in Sigma = {25, 50, 100, 200, 400} come out of one base pass plus four
 vector adds.  Every element is produced by a balanced-tree summation of at most
 w leaves, which keeps float32 error at the eps*log2(w) level instead of the
-eps*EPOCH level of a running sum — this is what makes the f32 TPU build safe when
+eps*EPOCH level of a running sum — this is what makes the f32 device build safe when
 combined with the engine's probe guard (config.IndexConfig.probe_guard).
 
 All functions are jit-compatible and shard_map-compatible (pure, static shapes).

@@ -1,9 +1,9 @@
 """Sharded index build: halo exchange + per-shard bucket pass under shard_map.
 
-TPU-native replacement for the distributed MR build (BuildIndexMapReduce.java:53-344):
+Device-native replacement for the distributed MR build (BuildIndexMapReduce.java:53-344):
 
   MR mapper re-reads w-1 points left of its region  ->  ppermute halo from the
-                                                        right neighbor over ICI
+                                                        right neighbor
   shuffle by mean key + reduce interval-union        ->  host-side grouping of the
                                                         gathered bucket arrays
                                                         (index/build.py)

@@ -4,8 +4,9 @@ The reference scales out by pre-splitting HBase regions on the time axis and
 running Hadoop-MR jobs per region (TimeSeriesHBaseTableOperator.java:53-56,
 BuildIndexMapReduce.java:113-184).  Here the same partitioning becomes a 1-D
 ``jax.sharding.Mesh`` with the series sharded by offset range; halos replace the
-mappers' cross-region re-reads, and XLA collectives over ICI replace the Hadoop
-shuffle (SURVEY.md section 2.6).
+mappers' cross-region re-reads, and XLA collectives replace the Hadoop shuffle
+(SURVEY.md section 2.6).  The cards of one host are joined all to all, so a
+1-D mesh in device order is the whole layout.
 """
 
 from __future__ import annotations
@@ -38,38 +39,3 @@ def pad_to_shards(x: np.ndarray, n_shards: int, pad_value=0.0) -> np.ndarray:
     if pad:
         x = np.concatenate([x, np.full(pad, pad_value, x.dtype)])
     return x
-
-
-def order_devices_for_ring(devices: Optional[Sequence] = None,
-                           slice_of=None) -> list:
-    """Order devices so the offset-range ring keeps DCN crossings minimal.
-
-    Every sharded kernel here (build halo, query halo) exchanges data only with
-    the NEXT device in mesh order — a ring.  On a multi-slice pod the ring
-    therefore crosses the (slow) DCN exactly once per slice boundary if and only
-    if devices are ordered slice-major; any interleaving multiplies DCN hops.
-    This is the whole multi-slice story for offset sharding: order the devices,
-    keep the big per-shard arrays local, and the inter-slice traffic is one
-    halo of ``max(w) - 1`` (build) or ``L`` (query) points per boundary per
-    step — a few KB over DCN regardless of n.
-
-    Groups by ``device.slice_index`` when the platform exposes it (TPU pods);
-    single-slice and CPU meshes come back unchanged.  ``slice_of`` overrides
-    the slice assignment — a mapping/callable from device id to slice index —
-    for explicit topologies and for exercising the multi-slice ordering on a
-    virtual mesh (tests/test_parallel.py).
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    if slice_of is None:
-        key = lambda d: (getattr(d, "slice_index", 0) or 0, d.id)
-    elif callable(slice_of):
-        key = lambda d: (slice_of(d.id), d.id)
-    else:
-        key = lambda d: (slice_of[d.id], d.id)
-    return sorted(devices, key=key)
-
-
-def make_mesh_multislice(devices: Optional[Sequence] = None,
-                         slice_of=None) -> Mesh:
-    """1-D offset mesh with slice-major device order (see order_devices_for_ring)."""
-    return make_mesh(order_devices_for_ring(devices, slice_of=slice_of))

@@ -3,7 +3,7 @@
 Equivalent of the reference's L2 operator interfaces
 (operator/TimeSeriesOperator.java:29-54, operator/IndexOperator.java:29-58), with
 the KV-store backends (HBase/Kudu, operator/hbase/*, operator/kudu/*) replaced by
-the TPU-native ``HbmStore``: on a TPU the series and all index scales are
+the device-native ``HbmStore``: the series and all index scales are
 device-resident arrays, so "range scans" are slices and "RPCs" disappear.  The
 file store remains for persistence/interop, the memory store for tests.
 """

@@ -1,7 +1,7 @@
 """In-RAM and in-HBM stores.
 
 ``MemoryStore`` mirrors TimeSeriesMemoryOperator (operator/memory/
-TimeSeriesMemoryOperator.java:29-82).  ``HbmStore`` is the TPU-native backend that
+TimeSeriesMemoryOperator.java:29-82).  ``HbmStore`` is the device-native backend that
 replaces the reference's HBase/Kudu tables (SURVEY.md section 2.6): series and
 index live as device arrays; range reads are device slices.
 """

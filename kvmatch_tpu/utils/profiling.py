@@ -43,33 +43,33 @@ class StatsWriter:
             f.flush()
 
 
-def fit_cost_model(engine, queries: np.ndarray, epsilon, repeats: int = 1,
+def fit_cost_model(engine, queries, epsilon, repeats: int = 1,
                    **params) -> QueryConfig:
     """Measure phase-2 time against (#disjoint windows, #offsets*L) on real
     hardware and return a QueryConfig with re-fitted coefficients.
 
-    Least squares on t2 ~= a * n_windows + b * n_offsets/1e5 * L, mirroring the
-    reference's fitted model shape (QueryEngine.java:316-327)."""
+    ``queries`` is one (Q, L) batch or a list of batches (one per query
+    length).  Least squares on t2 ~= a * n_windows + b * n_offsets/1e5 * L + c,
+    mirroring the reference's fitted model shape (QueryEngine.java:316-327)."""
+    batches = queries if isinstance(queries, (list, tuple)) else [queries]
     rows = []
     t2s = []
     for _ in range(repeats):
-        results = engine.query_batch(queries, epsilon, **params)
-        for res in results:
-            s = res.stats
-            # n_candidates counts offsets; host path records per-query timing.
-            rows.append([max(s.n_disjoint, 1),
-                         s.n_candidates / 1e5 * queries.shape[1],
-                         1.0])
-            t2s.append(s.t_phase2_ms)
+        for batch in batches:
+            for res in engine.query_batch(batch, epsilon, **params):
+                s = res.stats
+                rows.append([max(s.n_disjoint, 1),
+                             s.n_candidates / 1e5 * batch.shape[1], 1.0])
+                t2s.append(s.t_phase2_ms)
     A = np.asarray(rows)
     t = np.asarray(t2s)
     coef, *_ = np.linalg.lstsq(A, t, rcond=None)
     a, b = float(max(coef[0], 0.0)), float(max(coef[1], 0.0))
     c = float(max(coef[2], 0.0))
-    # On TPU the per-offset cost is tiny and a fixed launch cost dominates —
-    # the intercept keeps the early-termination comparison honest
+    # On the device the per-offset cost is tiny and a fixed launch cost
+    # dominates — the intercept keeps the early-termination comparison honest
     # (QueryEngine.java:316-327 has no intercept because serial Java has no
-    # launch floor).
+    # launch cost).
     if getattr(engine, "use_dtw_cost_model", False):
         return dataclasses.replace(engine.qcfg, phase2_cost_a_dtw=a,
                                    phase2_cost_b_dtw=b, phase2_cost_intercept=c)
@@ -78,7 +78,7 @@ def fit_cost_model(engine, queries: np.ndarray, epsilon, repeats: int = 1,
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/kvmatch-trace"):
+def trace(log_dir: str = "kvmatch-trace"):
     """Device-level profiling around a block: ``with trace(): engine.query(...)``.
 
     Produces a TensorBoard-loadable trace (jax.profiler.trace) — the deep

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Measure the true f32 banded-DTW DP error vs the f64 twin (VERDICT r2 item 4).
+"""Measure the true f32 banded-DTW DP error vs the f64 twin.
 
 The phase-2 DTW guard decides which near-threshold candidates get the exact
-(expensive) f64 confirmation; round 2 used 1e-2*(eps2+1) + 1e-4*L, whose
-absolute term is ~50x the actual f32 error scale.  This script measures
+(expensive) f64 confirmation; a guard of 1e-2*(eps2+1) + 1e-4*L has an
+absolute term ~50x the actual f32 error scale.  This script measures
 max |d2_f32 - d2_f64| across adversarial batches — z-normalized and raw
 windows, random-walk and sine data, multiple (L, rho) — against the
 L*eps32-scaled bound the tightened guard will use, on whichever backend JAX
-picks (run once under JAX_PLATFORMS=cpu and once on the TPU).
+picks (run once with --cpu and once on the GPU).
 """
 import os
 import sys
@@ -23,7 +23,7 @@ else:
 
 import jax.numpy as jnp  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 from kvmatch_tpu.ops.dtw import (dtw_banded_batch_multi,  # noqa: E402
                                  dtw_banded_batch_ds_multi, ds_value,
                                  _dtw_banded_batch_f64_np)

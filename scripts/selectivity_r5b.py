@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Reference-scale selectivity evaluation at n=1e8, CALIBRATED workloads
-(VERDICT r4 next #8).
+"""Reference-scale selectivity evaluation at n=1e8, CALIBRATED workloads.
 
 The reference evaluates 100 queries per answer-selectivity decade
 (QueryTestGroupBySelectivity.java:36-44).  Random (offset, eps) sweeps
@@ -8,16 +7,15 @@ cannot fill the upper decades on smooth random-walk data — answer counts
 jump from 1 (the self-match) to millions as eps crosses the local density
 threshold — so this driver CONSTRUCTS the workload the way the reference's
 generators do: for each of 100 random offsets it computes the full distance
-profile of the query against every window ON DEVICE (one MXU correlation
-scan + running top-K, ~1.6e12 flop/query), then picks eps per decade as the
+profile of the query against every window ON DEVICE (one correlation scan +
+running top-K, ~1.6e12 flop/query), then picks eps per decade as the
 mid-gap quantile targeting 3x10^(d+8) answers (mid-decade).  Each decade is
 then replayed as one timed 100-query batch through the serving engine
-(stats-only device index + fused Pallas flag probe) and reports
+(stats-only device index + fused flag probe) and reports
 T/T1/T2/#candidates/#answers and false dismissals (a query's own offset
 missing from its answer set).
 
-Output: one JSON line per section; the `*_decade` lines feed
-docs/results_r5.md.
+Output: one JSON line per section.
 """
 import argparse
 import json
@@ -28,14 +26,12 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-import jax
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_kvmatch")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-import jax.numpy as jnp
+from kvmatch_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-_ = np.asarray(jnp.ones(16))
+enable_compile_cache()
 
 
 def log(**kw):
@@ -65,7 +61,7 @@ M = 4096                                           # windows per region row
 B = 64                                             # region rows per chunk
 
 icfg = IndexConfig()
-qcfg = QueryConfig.tpu_tuned(dense_probe_min_count=0)
+qcfg = QueryConfig.tuned(dense_probe_min_count=0)
 
 t0 = time.perf_counter()
 data = generate_series(N, seed=20260817)

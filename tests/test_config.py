@@ -27,7 +27,7 @@ def test_scale_subset_ladder_plans():
     data = generate_series(200_000, seed=3)
     index = build_index_tpu(data, icfg, backend="host")
     eng = QueryEngine(data, index=index, icfg=icfg,
-                      qcfg=QueryConfig.tpu_tuned())
+                      qcfg=QueryConfig.tuned())
     res = eng.query_at(54_321, 8192, 10.0)
     assert res.found and int(res.offsets[0]) == 54_321
     assert res.stats.n_segments_used >= 1

@@ -170,41 +170,8 @@ def test_flags_probe_matches_run_probe(setup):
         assert np.any((fl <= l) & (r <= fr))
 
 
-def test_barrel_probe_bit_identical(setup, monkeypatch):
-    """The TPU barrel-shift probe addressing (_row_at_shift static form) must
-    be BIT-identical to the legacy dynamic_slice form — same probes, same
-    flags, same counts — for both engine families."""
-    from kvmatch_tpu.engine.base import _Ctx, QueryStats
-    from kvmatch_tpu.parallel import query as pq
-    data, idx = setup
-    results = {}
-    for barrel in (False, True):
-        monkeypatch.setattr(pq, "PROBE_BARREL_ON_CPU", barrel)
-        for cls, params, (off, L, eps) in [
-                (QueryEngine, {}, (2000, 512, 10.0)),
-                (NormQueryEngine, {"alpha": 1.3, "beta": 8.0},
-                 (7000, 512, 4.0))]:
-            eng = cls(data, index=idx, icfg=IndexConfig(),
-                      qcfg=QueryConfig(dense_probe_min_count=0))
-            q = data[off:off + L]
-            ctx = _Ctx(query=q, length=L, epsilon=eps, eps2=eps * eps,
-                       params=dict(params), stats=QueryStats())
-            if params:  # norm engines seed z-space params during _plan
-                segs = eng._plan(ctx)
-            else:
-                segs = eng._plan(ctx)
-            n1, r1, l1_, rr1, _ = eng._device_dense_phase1([ctx], [segs])
-            nf, flags, _F = eng._device_dense_phase1_flags([ctx], [segs])
-            key = (cls.__name__,)
-            got = (int(n1[0]), int(r1[0]), l1_[0].tolist(), rr1[0].tolist(),
-                   int(nf[0]), flags[0].tolist())
-            if key in results:
-                assert results[key] == got, f"barrel mismatch for {key}"
-            results[key] = got
-
-
 def test_flags_emit_route_exact_answers(setup):
-    """dense_probe_emit='flags' — the TPU-default emission that skips the run
+    """dense_probe_emit='flags' — the GPU-default emission that skips the run
     ladder entirely — must return the exact answer set for both engine
     families (over-coverage is rejected by the exact phase 2)."""
     data, idx = setup

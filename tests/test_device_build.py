@@ -177,7 +177,7 @@ def test_stats_only_index_serves_fly_route_exactly(data):
 
     cfg = IndexConfig()
     index = db.build_index_device_stats(data, cfg)
-    qcfg = QueryConfig.tpu_tuned(dense_probe_min_count=0)
+    qcfg = QueryConfig.tuned(dense_probe_min_count=0)
     eng = NormQueryEngine(data, index=index, icfg=cfg, qcfg=qcfg)
     rng = np.random.default_rng(5)
     for o in rng.integers(0, N - 512, 3):

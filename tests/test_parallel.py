@@ -323,67 +323,3 @@ def test_blocked_probe_multi_block_matches_host(data, monkeypatch):
     nhost = neng.query_batch(queries, 3.0, alpha=1.3, beta=12.0)
     for qi in range(len(q_offs)):
         assert set(ndev[qi].offsets.tolist()) == set(nhost[qi].offsets.tolist())
-
-
-def test_multislice_ring_order(mesh, data):
-    """Slice-major ordering is a no-op on single-slice devices, and the sharded
-    build is invariant to being constructed through the multislice helper."""
-    from kvmatch_tpu.parallel.mesh import make_mesh_multislice, order_devices_for_ring
-    devs = order_devices_for_ring(jax.devices())
-    assert [d.id for d in devs] == sorted(d.id for d in jax.devices())
-    ms = make_mesh_multislice()
-    icfg = IndexConfig()
-    i1, s1 = build_index_sharded(data, mesh, icfg)
-    i2, s2 = build_index_sharded(data, ms, icfg)
-    for w in i1:
-        assert np.array_equal(i1[w].left, i2[w].left)
-    assert np.array_equal(np.asarray(s1), np.asarray(s2))
-
-
-def test_multislice_two_slice_partition(data):
-    """Simulate a 2-slice pod on the 8-CPU mesh: partition the devices into two
-    'slices', feed them to order_devices_for_ring shuffled, and run the sharded
-    build + query through the resulting multi-slice mesh.  Asserts (a) the
-    ordering is slice-major (one DCN crossing per boundary on real pods) and
-    (b) the build is bit-identical and the query exact through that mesh."""
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from kvmatch_tpu.engine.base import _Ctx, QueryStats
-    from kvmatch_tpu.parallel.mesh import make_mesh_multislice, order_devices_for_ring
-    from kvmatch_tpu.parallel.query import make_sharded_query_step, pack_segments
-
-    devs = list(jax.devices())
-    assert len(devs) == 8
-    slice_of = {d.id: (0 if i < 4 else 1) for i, d in enumerate(sorted(devs, key=lambda d: d.id))}
-    shuffled = [devs[i] for i in [5, 0, 3, 6, 1, 7, 2, 4]]
-    ordered = order_devices_for_ring(shuffled, slice_of=slice_of)
-    slices_seen = [slice_of[d.id] for d in ordered]
-    assert slices_seen == sorted(slices_seen), "ring order is not slice-major"
-    ms = make_mesh_multislice(shuffled, slice_of=slice_of)
-
-    icfg = IndexConfig()
-    ref = build_index_numpy(data, icfg)
-    index, stack = build_index_sharded(data, ms, icfg)
-    for w in icfg.scales:
-        np.testing.assert_array_equal(ref[w].keys, index[w].keys)
-        np.testing.assert_array_equal(ref[w].left, index[w].left)
-
-    L, eps = 512, 6.0
-    engine = QueryEngine(data, index=index, icfg=icfg)
-    q = data[11000:11000 + L]
-    ctx = _Ctx(query=q, length=L, epsilon=eps, eps2=eps * eps, params={},
-               stats=QueryStats())
-    segs = pack_segments(engine._plan(ctx), tuple(icfg.scales))
-    n_sh = ms.devices.size
-    pad = (-data.size) % n_sh
-    padded = np.concatenate([data, np.zeros(pad)]) if pad else data
-    data_sh = jax.device_put(padded.astype(np.float32),
-                             NamedSharding(ms, P("shard")))
-    step = make_sharded_query_step(ms, icfg, L, top_k=512)
-    counts, idx, d2 = step(data_sh, stack, jnp.asarray(q, jnp.float32), segs,
-                           jnp.float32(eps * eps), jnp.int32(data.size))
-    assert np.asarray(counts).max() <= 512
-    idx, d2 = np.asarray(idx).ravel(), np.asarray(d2).ravel()
-    got = idx[d2 <= eps * eps * (1 + 1e-3)]
-    oo, _ = oracle.rsm_ed(data, q, eps)
-    assert set(oo.tolist()) <= set(got.tolist())

@@ -1,5 +1,5 @@
-"""Fly-probe memory-budget regressions for the BENCH_r03 OOM (VERDICT r3
-weak #1 / next #1): trace-time shape math bounding the probe program's working
+"""Fly-probe memory-budget regressions (a Q=128 probe program once compiled
+past device memory): trace-time shape math bounding the probe program's working
 set, plus the DENSE_PROBE_GROUP sub-batching of query_batch_device.  Fast lane
 — these must run before every commit."""
 
@@ -16,10 +16,10 @@ def test_probe_working_set_budget_q128():
     """At the bench shape (Q=128 batch, n=1e8) the fly-probe program's
     estimated working set — PROBE_TEMP_COUNT live (group, block) f32 temps
     plus both (group, K+1) i32 run buffers — must stay under 75% of a 16 GB
-    chip.  Pure shape math; no device needed."""
+    device (the CPU stand-in).  Pure shape math; no device needed."""
     from kvmatch_tpu.engine.base import BaseEngine
     from kvmatch_tpu.parallel import query as pq
-    hbm = 16 << 30
+    hbm = pq.CPU_DEVICE_MEM_BYTES
     n = 100_000_000
     for Q in (128, 64, 32, 8, 1):
         group = min(Q, BaseEngine.DENSE_PROBE_GROUP)
@@ -50,7 +50,7 @@ def setup():
 
 def test_query_batch_device_subbatches(setup, monkeypatch):
     """query_batch_device must probe in DENSE_PROBE_GROUP-query programs, not
-    one full-batch program (the BENCH_r03 crash path, engine/base.py), and the
+    one full-batch program (the out-of-memory path, engine/base.py), and the
     sub-batched results must still match the host route exactly."""
     from kvmatch_tpu.engine import base as eb
     data, idx = setup

@@ -1,9 +1,11 @@
-"""Fused Pallas probe kernel vs the XLA flags step (interpret mode on CPU).
+"""Fused probe kernel (Pallas through Triton) vs the XLA flags step.
 
 The kernel (ops/probe_pallas.py) must reproduce the XLA fly probe's candidate
-counts exactly and its flags at 128-position granularity: on TPU the engine
+counts exactly and its flags at 128-position granularity: on a GPU the engine
 routes `_device_dense_phase1_flags` through it (engine/base.py), so any
-numeric divergence would silently change phase-1 coverage.
+numeric divergence would silently change phase-1 coverage.  Here it runs in
+Pallas interpret mode; the compiled kernel is compared with the XLA step on
+the card by chip_smoke.py.
 """
 
 import jax
@@ -12,16 +14,11 @@ import numpy as np
 import pytest
 
 from kvmatch_tpu.config import IndexConfig
-from kvmatch_tpu.ops.probe_pallas import (FLAG, LANES, RT, TILE,
-                                          probe_flags_tiles, views_for)
-from kvmatch_tpu.parallel.query import (DenseSegments, _dense_probe,
-                                        _dense_probe_norm,
+from kvmatch_tpu.ops.probe_pallas import (FLAG, TILE, probe_flags_tiles,
+                                          probe_kernel_for)
+from kvmatch_tpu.parallel.query import (_dense_probe, _dense_probe_norm,
                                         pack_segments_batch)
 from kvmatch_tpu.plan import QuerySegment
-
-pytestmark = pytest.mark.slow  # interpret-mode pallas is compile-heavy
-
-INTERPRET = jax.default_backend() != "tpu"
 
 
 def _mk_segments(data, offs, L, icfg, widths):
@@ -45,12 +42,10 @@ def test_probe_kernel_matches_xla_probe(norm):
     icfg = IndexConfig()
     rng = np.random.default_rng(0)
     L, Q = 512, 2
-    NT = 2                       # two tiles
+    NT = 3                       # three tiles
     blk = NT * TILE
-    nv = views_for(L, icfg.unit)
-    halo = (nv - 1) * TILE
-    n = blk - 3000               # m inside the block; tail positions masked
-    data = np.cumsum(rng.normal(0, 0.1, blk + halo + 400)).astype(np.float64)
+    n = blk - 700                # m inside the block; tail positions masked
+    data = np.cumsum(rng.normal(0, 0.1, blk + L + 400)).astype(np.float64)
     offs = rng.integers(0, n - L, Q)
     seg_lists = _mk_segments(data, offs, L, icfg, [100, 50, 25, 200, 25])
     segs = pack_segments_batch(seg_lists, tuple(icfg.scales))
@@ -66,40 +61,71 @@ def test_probe_kernel_matches_xla_probe(norm):
     from kvmatch_tpu.ops.sliding import build_buckets
     bk = build_buckets(jnp.asarray(data, jnp.float32), tuple(icfg.scales),
                        icfg.pos_of_d)
-    bwin = jnp.stack([bk[w][: blk + halo] for w in icfg.scales])
+    stack = jnp.stack([bk[w][: blk + L] for w in icfg.scales])
     slack = np.float32(icfg.probe_guard)
     m = n - L + 1
     if norm:
         acc = jax.vmap(lambda sg, c: _dense_probe_norm(
-            bwin, sg, icfg.unit, icfg.d, blk, slack,
+            stack, sg, icfg.unit, icfg.d, blk, slack,
             c[0], c[1], c[2], c[3], L))(segs, cons)
     else:
-        acc = jax.vmap(lambda sg, c: _dense_probe(
-            bwin, sg, icfg.unit, icfg.d, blk, slack, L))(
-                segs, jnp.zeros((Q, 4)))
+        acc = jax.vmap(lambda sg: _dense_probe(
+            stack, sg, icfg.unit, icfg.d, blk, slack))(segs)
     pos = np.arange(blk)
     mask = (np.asarray(acc) <= np.asarray(eps2)[:, None]) & (pos[None, :] < m)
     ref_counts = mask.sum(axis=1)
     ref_flags = mask.reshape(Q, blk // FLAG, FLAG).any(axis=2)
 
-    S = len(icfg.scales)
-    WR = (NT + nv - 1) * RT
-    bwin3 = bwin.reshape(S, WR, LANES)
-    flags_t, counts = probe_flags_tiles(
-        bwin3, segs.scale_idx, segs.order, segs.valid.astype(jnp.int32),
-        segs.mean_lo, segs.mean_hi, segs.width, eps2[:, None], cons,
-        jnp.asarray([[0, m]], jnp.int32),
+    flags, counts = probe_flags_tiles(
+        stack, segs.scale_idx, segs.order, segs.valid.astype(jnp.int32),
+        segs.mean_lo, segs.mean_hi, segs.width, eps2, cons,
+        jnp.asarray([0, 0, m], jnp.int32), n_tiles=NT,
         length=L, unit=icfg.unit, d=icfg.d, slack=float(icfg.probe_guard),
-        norm=norm, interpret=INTERPRET)
-    got_flags = np.asarray(flags_t).transpose(1, 0, 2).reshape(
-        Q, NT * (TILE // FLAG)) > 0
+        norm=norm, interpret=True)
     np.testing.assert_array_equal(np.asarray(counts), ref_counts)
-    np.testing.assert_array_equal(got_flags, ref_flags)
+    np.testing.assert_array_equal(np.asarray(flags), ref_flags)
     assert ref_counts.min() >= 1  # self-query offsets must be candidates
 
 
+def test_probe_kernel_column_offset():
+    """iscal[0] moves the window the kernel reads: probing columns from c0
+    equals probing a stack that starts at c0."""
+    icfg = IndexConfig()
+    rng = np.random.default_rng(4)
+    L, NT, c0 = 256, 2, 3 * 128 + 5
+    stack = jnp.asarray(rng.integers(0, 40, (len(icfg.scales),
+                                             c0 + NT * TILE + L)), jnp.int32)
+    segs = pack_segments_batch(
+        [[QuerySegment(order=1, w=25, mean_lo=1.0, mean_hi=1.0, count=1),
+          QuerySegment(order=3, w=50, mean_lo=0.5, mean_hi=0.6, count=1)]],
+        tuple(icfg.scales))
+    args = (segs.scale_idx, segs.order, segs.valid.astype(jnp.int32),
+            segs.mean_lo, segs.mean_hi, segs.width,
+            jnp.asarray([0.5], jnp.float32), jnp.zeros((1, 4), jnp.float32))
+    kw = dict(n_tiles=NT, length=L, unit=icfg.unit, d=icfg.d,
+              slack=float(icfg.probe_guard), norm=False, interpret=True)
+    m = NT * TILE
+    f1, c1 = probe_flags_tiles(stack, *args, jnp.asarray([c0, 0, m]), **kw)
+    f2, c2 = probe_flags_tiles(stack[:, c0:], *args, jnp.asarray([0, 0, m]),
+                               **kw)
+    np.testing.assert_array_equal(np.asarray(f1), np.asarray(f2))
+    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
+    assert 0 < int(c1[0]) < m
+
+
+@pytest.mark.parametrize("platform,route", [("gpu", "triton"),
+                                            ("cpu", "xla")])
+def test_probe_kernel_for(platform, route):
+    assert probe_kernel_for(platform) == route
+
+
+def test_probe_kernel_for_unknown_platform():
+    with pytest.raises(ValueError):
+        probe_kernel_for("metal")
+
+
 def test_flags_pallas_step_constraint_and_sound():
-    """The full Pallas flag step (blocked driver + device constraint AND for
+    """The full fused flag step (blocked driver + device constraint AND for
     cNSM) must (a) never dismiss an exact answer's block, (b) only REMOVE
     flags relative to the probe-only bitmap, (c) keep probe-exact counts."""
     from kvmatch_tpu.data.generators import generate_series
@@ -108,7 +134,7 @@ def test_flags_pallas_step_constraint_and_sound():
     from kvmatch_tpu.oracle import nsm_ed
     from kvmatch_tpu.parallel.query import (
         FLY_FILL, fly_pad_for, make_dense_probe_step_flags,
-        make_dense_probe_step_flags_pallas, pack_segments_batch)
+        make_dense_probe_step_flags_pallas)
 
     icfg = IndexConfig()
     n, L, Q = 60_000, 512, 2
@@ -135,7 +161,7 @@ def test_flags_pallas_step_constraint_and_sound():
                               jnp.full(pad, FLY_FILL, jnp.float32)])
 
     pal = make_dense_probe_step_flags_pallas(icfg, L, norm=True,
-                                             interpret=INTERPRET)
+                                             interpret=True)
     n_off, flags = pal(data_p, segs, eps2, cons, jnp.int32(n))
     n_off, flags = np.asarray(n_off), np.asarray(flags)
     xla = make_dense_probe_step_flags(icfg, L, flag_block=FLAG, norm=True)
@@ -157,7 +183,7 @@ def test_flags_pallas_step_constraint_and_sound():
     # cached-stats variant (precomputed window stats) is bit-identical
     from kvmatch_tpu.parallel.query import make_cons_stats_prog
     pal_c = make_dense_probe_step_flags_pallas(
-        icfg, L, norm=True, interpret=INTERPRET, cached_stats=True)
+        icfg, L, norm=True, interpret=True, cached_stats=True)
     stats3 = make_cons_stats_prog(L)(data_p)
     n_off_c, flags_c = pal_c(data_p, segs, eps2, cons, jnp.int32(n), stats3)
     np.testing.assert_array_equal(np.asarray(n_off_c), n_off)
@@ -167,7 +193,7 @@ def test_flags_pallas_step_constraint_and_sound():
     # stack's sentinel tail (p + shift <= n - w for every valid segment)
     from kvmatch_tpu.parallel.query import make_bucket_stack_prog
     pal_b = make_dense_probe_step_flags_pallas(
-        icfg, L, norm=True, interpret=INTERPRET, cached_stats=True,
+        icfg, L, norm=True, interpret=True, cached_stats=True,
         cached_buckets=True)
     bstack3 = make_bucket_stack_prog(icfg, tuple(icfg.scales))(data_p)
     n_off_b, flags_b = pal_b(data_p, segs, eps2, cons, jnp.int32(n),

@@ -86,8 +86,8 @@ def test_non_multiple_lengths(setup, length):
     _check(engine, data, offset, length, 3.0)
 
 
-def test_tpu_tuned_config_same_answers():
-    """The TPU-fitted cost model changes only WHEN phase 1 stops, never the
+def test_tuned_config_same_answers():
+    """The device-fitted cost model changes only WHEN phase 1 stops, never the
     answer set (phase 2 verifies whatever phase 1 hands it)."""
     import numpy as np
     from kvmatch_tpu.config import IndexConfig, QueryConfig
@@ -99,7 +99,7 @@ def test_tpu_tuned_config_same_answers():
     icfg = IndexConfig()
     index = build_index_numpy(data, icfg)
     e1 = QueryEngine(data, index=index, icfg=icfg)
-    e2 = QueryEngine(data, index=index, icfg=icfg, qcfg=QueryConfig.tpu_tuned())
+    e2 = QueryEngine(data, index=index, icfg=icfg, qcfg=QueryConfig.tuned())
     for off, L, eps in [(4000, 512, 6.0), (30000, 1024, 10.0)]:
         r1 = e1.query_at(off, L, eps)
         r2 = e2.query_at(off, L, eps)
